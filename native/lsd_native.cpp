@@ -1,6 +1,6 @@
-// Native host-side runtime for lsdradixsort_tpu.
+// Native host-side runtime for lsdradixsort.
 //
-// TPU-native framework's counterpart of the reference's C++ host layer:
+// The framework's counterpart of the reference's C++ host layer:
 //   * CPU golden models (reference: LSDRadixSort.cu:25-69 LSD sort,
 //     cu:128-139 exclusive prefix sum, cu:643-658 per-block histograms,
 //     cu:483-494 transpose) — used as both correctness oracles and the
@@ -109,7 +109,7 @@ void lsd_transpose_u32(const uint32_t* in, uint32_t* out, int64_t rows,
 
 // ---------------------------------------------------------------------------
 // Stable LSD radix sort, keys only. Byte-radix (r=8, 4 passes) regardless of
-// the `r` the TPU pipeline uses — it is the host oracle/baseline, and byte
+// the `r` the device pipeline uses — it is the host oracle/baseline, and byte
 // passes are the fast CPU configuration. Semantics match the reference's
 // LSDRadixSort (cu:25-69): ascending, stable, full 32 bits.
 // `tmp` must hold n u32. Result is left in `keys`.
@@ -153,7 +153,7 @@ void lsd_radix_sort_kv_u32(uint32_t* keys, uint32_t* vals, uint32_t* tmpk,
 }
 
 // Single LSD pass (histogram -> scan -> stable permute) for digit `group`
-// of width r bits: the oracle for the TPU per-pass kernels.
+// of width r bits: the oracle for the device per-pass pipeline.
 // Reference: LSDRadixSortPass, LSDRadixSort.cu:25-54.
 void lsd_radix_sort_pass_u32(const uint32_t* in, uint32_t* out, int64_t n,
                              int r, int group) {

@@ -1,16 +1,18 @@
-"""Test configuration: hermetic CPU backend with 8 virtual devices.
+"""Test configuration: a CPU backend with 8 virtual devices by default.
 
-Must run before jax is imported anywhere: forces the CPU platform (tests
-never depend on TPU availability; Pallas kernels auto-select interpret mode
-off-TPU) and exposes 8 virtual devices so the shard_map/collective paths —
-the multi-chip design — execute end-to-end (SURVEY.md §4).
+Must run before jax is imported anywhere: selects the CPU platform unless
+JAX_PLATFORMS says otherwise (the tests never depend on a card) and
+exposes 8 virtual devices so the shard_map/collective paths — the
+multi-card design — execute end-to-end (SURVEY.md §4). Tests marked
+`gpu` need the card and skip elsewhere; run them there with
+`JAX_PLATFORMS=cuda python -m pytest tests/ -m gpu`.
 """
 import os
 import threading
 
 # XLA:CPU's LLVM pipeline C-stack-overflows (flaky segfault in
-# backend_compile_and_load) when compiling the big unrolled merge-engine /
-# composed-pipeline graphs. Two distinct stacks are involved:
+# backend_compile_and_load) when compiling big unrolled graphs such as
+# the composed LSD pipeline. Two distinct stacks are involved:
 #
 #  1. The thread calling jit: runs part of the pipeline inline. Raising
 #     RLIMIT_STACK mid-process does NOT reliably grow the MAIN thread
@@ -21,10 +23,10 @@ import threading
 #  2. XLA's own compilation pool: the thunk runtime parallelizes LLVM
 #     codegen onto pthreads created LATER in this process, which size
 #     their stacks from the RLIMIT_STACK soft limit *at creation time*
-#     (default 8 MB — crashed 2026-08-18 at tests/test_merge.py late in
-#     the suite, on a big-stack worker, i.e. inside a pool thread the
-#     worker fix cannot reach). Raising the soft limit here IS reliable
-#     for those: no exec-time race for threads not yet created.
+#     (default 8 MB — crashed late in the suite on a big-stack worker,
+#     i.e. inside a pool thread the worker fix cannot reach). Raising
+#     the soft limit here IS reliable for those: no exec-time race for
+#     threads not yet created.
 threading.stack_size(512 * 1024 * 1024)
 
 import resource  # noqa: E402
@@ -35,26 +37,26 @@ if _soft != resource.RLIM_INFINITY and _soft < _want:
     new = _want if _hard == resource.RLIM_INFINITY else min(_want, _hard)
     resource.setrlimit(resource.RLIMIT_STACK, (new, _hard))
 
-os.environ["JAX_PLATFORMS"] = "cpu"  # force: driver env may point at TPU
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 flags = os.environ.get("XLA_FLAGS", "")
 if "xla_force_host_platform_device_count" not in flags:
     os.environ["XLA_FLAGS"] = (
         flags + " --xla_force_host_platform_device_count=8").strip()
 
-# Site customization (e.g. an accelerator plugin registered from
-# sitecustomize) may import jax before this file runs, making the env vars
-# above ineffective; jax.config still works pre-backend-initialization.
+# jax may already be imported when this file runs, which makes the env
+# vars above too late; jax.config works until a backend initializes.
 import jax  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
 
-# Persistent compilation cache: the merge-engine / composed-pipeline test
-# graphs dominate suite wall time (and each LLVM compile is a fresh roll
-# of the segfault dice above). Cached executables survive across runs —
-# a crashed run still warms the cache for the rerun.
-_cache_dir = os.path.join(os.path.dirname(__file__), os.pardir,
-                          ".jax_test_cache")
-jax.config.update("jax_compilation_cache_dir", os.path.abspath(_cache_dir))
+# Persistent compilation cache: cached executables survive across runs.
+# JAX reads JAX_COMPILATION_CACHE_DIR itself where it is set; otherwise
+# the tests keep their own directory in the checkout (.gitignore).
+if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    _cache_dir = os.path.join(os.path.dirname(__file__), os.pardir,
+                              ".jax_test_cache")
+    jax.config.update("jax_compilation_cache_dir",
+                      os.path.abspath(_cache_dir))
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 import numpy as np  # noqa: E402
@@ -90,10 +92,10 @@ def _release_jit_code_between_modules():
     BOTH the compile path and the cache-deserialize path, on threads with
     512 MB stacks — i.e. not (only) stack depth but accumulated state:
     every compiled executable keeps ORC-JIT'd code resident, and the
-    merge-engine tests compile hundreds of large programs into one
-    process. Dropping the jit caches releases the executables (and their
-    JIT memory) at module boundaries; the persistent on-disk cache keeps
-    the recompile cost near zero.
+    suite compiles hundreds of programs into one process. Dropping the
+    jit caches releases the executables (and their JIT memory) at module
+    boundaries; the persistent on-disk cache keeps the recompile cost
+    near zero.
     """
     yield
     import gc
@@ -104,3 +106,13 @@ def _release_jit_code_between_modules():
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
+
+
+@pytest.fixture
+def gpu_devices():
+    """The JAX devices, when they are GPUs; skips the test otherwise.
+    Decided here, at run time, never while modules are imported."""
+    devs = jax.devices()
+    if devs[0].platform != "gpu":
+        pytest.skip("needs a GPU: run with JAX_PLATFORMS=cuda on the card")
+    return devs

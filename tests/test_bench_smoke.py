@@ -1,69 +1,32 @@
 """Smoke tests: every bench suite runs end-to-end with --verify semantics
-on the CPU backend at tiny sizes (kernels in interpret mode). Protects the
-CLI from rot; the real numbers come from on-device runs (BENCHMARKS.md)."""
+on the CPU backend at tiny sizes. Protects the CLI from rot; the real
+numbers come from runs on the card. Each record names the device it ran
+on, and off the card its share of peak bandwidth is not measured."""
 import pytest
 
-from lsdradixsort_tpu.bench import runner
+from lsdradixsort.bench import runner
 
 
-@pytest.mark.parametrize("suite", ["sort", "tile_sort", "shuffle",
-                                   "histogram", "scan", "transpose",
+@pytest.mark.parametrize("suite", ["sort", "histogram", "scan", "transpose",
                                    "query"])
 def test_suite_runs_and_verifies(suite):
     records = runner.SUITES[suite](16, verify=True, sweep=False)
     assert records, f"suite {suite} produced no records"
     for rec in records:
         assert rec.verified in (True, None), rec.line()
-        assert rec.device_ms > 0
+        assert rec.ms > 0
+        assert rec.device == "cpu/cpu"
+        assert rec.roofline_frac is None
+        assert "not measured" in rec.line()
+
+
+def test_sort_suite_sweep_rows_verify():
+    records = runner.SUITES["sort"](14, verify=True, sweep=True)
+    names = {r.suite for r in records}
+    assert {"sort/64bit", "sort/composed_r8"} <= names
+    assert all(r.verified for r in records)
 
 
 def test_dist_suite_runs():
     records = runner.SUITES["dist"](13, verify=True, sweep=False)
     assert records and records[0].verified in (True, None)
-
-
-def test_flagship_bench_staleness_marking(tmp_path, monkeypatch):
-    """bench.py's record bookkeeping: seeded (replayed) fields must carry
-    stale markers in the emitted line and never count as fresh (ADVICE
-    r4; VERDICT r4 weak #1)."""
-    import importlib
-    import json
-    import sys
-    bench = importlib.import_module("bench")
-    # reset module state
-    bench.BEST.clear()
-    bench.BEST.update({"metric": "sort_throughput", "value": None,
-                       "unit": "Melem/s", "vs_baseline": None})
-    bench.FRESH.update(keys=False, kv=False)
-    bench._EMITTED = False
-    monkeypatch.setattr(bench, "LAST_GOOD", str(tmp_path / "lg.json"))
-    (tmp_path / "lg.json").write_text(json.dumps(
-        {"metric": "sort_throughput", "value": 800.0, "unit": "Melem/s",
-         "vs_baseline": 2.0, "kv_value": 380.0, "kv_vs_baseline": 0.95}))
-    bench._seed_from_last_good()
-
-    captured = []
-    monkeypatch.setattr(sys.stdout, "write",
-                        lambda s: captured.append(s) or len(s))
-    # case 1: nothing fresh — whole record stale + kv_stale
-    bench._emit(partial=True)
-    rec = json.loads(captured[-1])
-    assert rec["stale"] is True and rec["kv_stale"] is True
-
-    # case 2: keys fresh, kv still seeded — only kv_stale
-    bench._EMITTED = False
-    captured.clear()
-    bench.FRESH["keys"] = True
-    bench.BEST.update(value=808.0, vs_baseline=2.02)
-    bench._emit()
-    rec = json.loads(captured[-1])
-    assert "stale" not in rec and rec["kv_stale"] is True
-
-    # case 3: both fresh — no stale markers
-    bench._EMITTED = False
-    captured.clear()
-    bench.FRESH["kv"] = True
-    bench.BEST.update(kv_value=400.0, kv_vs_baseline=1.0)
-    bench._emit()
-    rec = json.loads(captured[-1])
-    assert "stale" not in rec and "kv_stale" not in rec

@@ -1,227 +1,28 @@
-"""Chip-scale chunked sort (ops/bigsort.py, kernels/merge.py runs-based
-pass) at shrunken geometry, golden-checked against numpy.
-
-The production 2^30 memory plan (8 segments of 2^27, C=2^19, 2 ranges)
-shrinks to S segments of 2^12, C=2^10, blk=128 so interpret mode stays
-fast; the code paths (exact-rank tables, slot-routed window DMAs, range
-splitting, trims, overflow fallback) are identical.
-"""
+"""Sorts of concatenated segments at the 2^30 plan's shape (many sorted
+or duplicate-heavy segments), now one flat sort_with_ranks / sort_kv."""
 import numpy as np
-import pytest
 import jax.numpy as jnp
 
-from lsdradixsort_tpu.kernels import merge as M
-from lsdradixsort_tpu.ops.bigsort import (merge_runs_chunked,
-                                          sort_kv_chunked,
-                                          sort_with_ranks_chunked)
+from lsdradixsort.ops.sort import sort_kv, sort_with_ranks
 
-TILE_LOG = 10
-BLK = 128
 L = 1 << 12
 
 
-def _mk_runs(rng, S, L, maxval=2**32):
-    """S sorted runs + the global iota payload laid out run-major."""
-    ks, vs = [], []
-    for s in range(S):
-        k = np.sort(rng.integers(0, maxval, L, dtype=np.uint32))
-        ks.append(k)
-        vs.append(np.arange(s * L, (s + 1) * L, dtype=np.uint32))
-    return ks, vs
-
-
-@pytest.mark.parametrize("S,nranges", [(8, 2), (8, 4), (4, 2), (2, 1)])
-def test_merge_runs_chunked(rng, S, nranges):
-    ks, vs = _mk_runs(rng, S, L)
-    outs = merge_runs_chunked(
-        [[jnp.asarray(k) for k in ks], [jnp.asarray(v) for v in vs]],
-        chunk_log2=10, nranges=nranges, blk=BLK, buf_elems=1 << 13)
-    got_k = np.concatenate([np.asarray(r) for r in outs[0]])
-    got_v = np.concatenate([np.asarray(r) for r in outs[1]])
-    allk = np.concatenate(ks)
-    allv = np.concatenate(vs)
-    want = np.lexsort((allv, allk))
-    np.testing.assert_array_equal(got_k, allk[want])
-    np.testing.assert_array_equal(got_v, allv[want])
-
-
-def test_merge_runs_chunked_duplicate_heavy(rng):
-    # massive tie spans: boundary selection must split tie groups by
-    # (run, pos) exactly
-    S = 8
-    ks, vs = _mk_runs(rng, S, L, maxval=5)
-    outs = merge_runs_chunked(
-        [[jnp.asarray(k) for k in ks], [jnp.asarray(v) for v in vs]],
-        chunk_log2=10, nranges=2, blk=BLK, buf_elems=1 << 13)
-    got_k = np.concatenate([np.asarray(r) for r in outs[0]])
-    got_v = np.concatenate([np.asarray(r) for r in outs[1]])
-    allk, allv = np.concatenate(ks), np.concatenate(vs)
-    want = np.lexsort((allv, allk))
-    np.testing.assert_array_equal(got_k, allk[want])
-    np.testing.assert_array_equal(got_v, allv[want])
-
-
-def test_merge_runs_chunked_overflow_fallback(rng):
-    # adversarial skew: run 0 holds all the small keys, so early chunks
-    # draw their whole mass from one run and overflow the quarter
-    # capacity -> host-detected gather fallback path
-    S = 8
-    ks, vs = [], []
-    for s in range(S):
-        lo = s * (2 ** 28)
-        k = np.sort(rng.integers(lo, lo + 1000, L).astype(np.uint32))
-        ks.append(k)
-        vs.append(np.arange(s * L, (s + 1) * L, dtype=np.uint32))
-    outs = merge_runs_chunked(
-        [[jnp.asarray(k) for k in ks], [jnp.asarray(v) for v in vs]],
-        chunk_log2=10, nranges=2, blk=BLK, buf_elems=1 << 13)
-    got_k = np.concatenate([np.asarray(r) for r in outs[0]])
-    got_v = np.concatenate([np.asarray(r) for r in outs[1]])
-    allk, allv = np.concatenate(ks), np.concatenate(vs)
-    want = np.lexsort((allv, allk))
-    np.testing.assert_array_equal(got_k, allk[want])
-    np.testing.assert_array_equal(got_v, allv[want])
-
-
 def test_sort_with_ranks_chunked(rng):
-    S = 8
-    segs = [rng.integers(0, 1000, L, dtype=np.uint32) for _ in range(S)]
+    segs = [rng.integers(0, 1000, L, dtype=np.uint32) for _ in range(8)]
     host = np.concatenate(segs)
-    kr, rr = sort_with_ranks_chunked(
-        [jnp.asarray(s) for s in segs], tile_log2=TILE_LOG,
-        chunk_log2=10, nranges=2, blk=BLK, buf_elems=1 << 13)
-    got_k = np.concatenate([np.asarray(r) for r in kr])
-    got_r = np.concatenate([np.asarray(r) for r in rr])
+    got_k, got_r = sort_with_ranks(jnp.asarray(host))
     perm = np.argsort(host, kind="stable")
-    np.testing.assert_array_equal(got_k, host[perm])
-    np.testing.assert_array_equal(got_r, perm.astype(np.uint32))
+    np.testing.assert_array_equal(np.asarray(got_k), host[perm])
+    np.testing.assert_array_equal(np.asarray(got_r), perm.astype(np.uint32))
 
 
 def test_sort_kv_chunked_payload(rng):
-    S = 4
-    segs = [rng.integers(0, 500, L, dtype=np.uint32) for _ in range(S)]
-    vals = [rng.integers(0, 2**32, L, dtype=np.uint32) for _ in range(S)]
+    segs = [rng.integers(0, 500, L, dtype=np.uint32) for _ in range(4)]
+    vals = [rng.integers(0, 2**32, L, dtype=np.uint32) for _ in range(4)]
     hostk = np.concatenate(segs)
     hostv = np.concatenate(vals)
-    kr, rr, vr = sort_kv_chunked(
-        [jnp.asarray(s) for s in segs], [jnp.asarray(v) for v in vals],
-        tile_log2=TILE_LOG, chunk_log2=10, nranges=2, blk=BLK,
-        buf_elems=1 << 13)
-    got_k = np.concatenate([np.asarray(r) for r in kr])
-    got_r = np.concatenate([np.asarray(r) for r in rr])
-    got_v = np.concatenate([np.asarray(r) for r in vr])
+    got_k, got_v = sort_kv(jnp.asarray(hostk), jnp.asarray(hostv))
     perm = np.argsort(hostk, kind="stable")
-    np.testing.assert_array_equal(got_k, hostk[perm])
-    np.testing.assert_array_equal(got_r, perm.astype(np.uint32))
-    np.testing.assert_array_equal(got_v, hostv[perm])
-
-
-def test_exact_tables_chunk_sizes(rng):
-    # every chunk is exactly C rows and windows cover exactly its mass
-    S = 8
-    ks, _ = _mk_runs(rng, S, L)
-    import jax
-    tab, _mp = jax.jit(
-        lambda rk: M.merge_tables_exact_runs(rk, chunk_elems=1 << 10,
-                                             blk=BLK)
-    )([jnp.asarray(k) for k in ks])
-    tab = np.asarray(tab)
-    nch = S * L // (1 << 10)
-    assert (tab[:nch, 19] == (1 << 10) // 128).all()
-    # emit region fits the buffer used by the tests
-    assert (tab[:nch, 17] + tab[:nch, 19] <= (1 << 13) // 128).all()
-
-
-@pytest.mark.parametrize("fanout", [None, 3, 16, 256])
-@pytest.mark.parametrize("dist", ["uniform", "allequal", "clustered",
-                                  "tinyrange", "extremes"])
-def test_exact_tables_fanout_selection(rng, fanout, dist):
-    """The multi-probe selection must place every boundary at the exact
-    global rank for any fanout and any key distribution (the tie fill
-    counts equal keys in run order)."""
-    import jax
-    S, Ls, C = 4, 1 << 9, 1 << 8
-    ks = []
-    for s in range(S):
-        if dist == "uniform":
-            k = rng.integers(0, 2**32, Ls, dtype=np.uint32)
-        elif dist == "allequal":
-            k = np.full(Ls, 0xDEADBEEF, np.uint32)
-        elif dist == "clustered":
-            k = (rng.integers(0, 3, Ls) * 0x40000000
-                 + rng.integers(0, 4, Ls)).astype(np.uint32)
-        elif dist == "tinyrange":
-            k = rng.integers(1000, 1010, Ls, dtype=np.uint32)
-        else:  # extremes: 0 and 0xFFFFFFFF only
-            k = np.where(rng.integers(0, 2, Ls) == 0, 0,
-                         0xFFFFFFFF).astype(np.uint32)
-        ks.append(np.sort(k))
-    tab, _mp = jax.jit(functools_partial_tables(C, fanout))(
-        [jnp.asarray(k) for k in ks])
-    tab = np.asarray(tab)
-    nch = S * Ls // C
-    # every chunk emits exactly C contiguous rows
-    assert (tab[:nch, 19] == C // 128).all()
-    assert (tab[:nch, 18] == np.arange(nch) * (C // 128)).all()
-    # DIRECT rank exactness: the table stores each chunk's boundary as
-    # per-run window starts (col s = wstart*blk_rows, so *128 = rank
-    # rounded down to blk) plus the exact in-buffer prefix
-    # pre = emit_row0*128 - m; their sum is the chunk's global start
-    # rank, which the selection must place at exactly t*C
-    pre = tab[:nch, 17] * 128 - tab[:nch, 16]
-    starts = tab[:nch, :S].sum(axis=1) * 128 + pre
-    np.testing.assert_array_equal(starts, np.arange(nch) * C)
-
-
-def functools_partial_tables(C, fanout):
-    def f(rk):
-        return M.merge_tables_exact_runs(rk, chunk_elems=C, blk=BLK,
-                                         fanout=fanout)
-    return f
-
-
-@pytest.mark.parametrize("fanout", [None, 3, 16])
-def test_merge_runs_chunked_fanout_bitexact(rng, fanout):
-    """End-to-end: the chunked merge with every fanout reproduces the
-    stable golden order bit-exactly (duplicate-heavy input so tie fills
-    are exercised)."""
-    S = 4
-    ks, vs = _mk_runs(rng, S, L, maxval=7)
-    outs = merge_runs_chunked(
-        [[jnp.asarray(k) for k in ks], [jnp.asarray(v) for v in vs]],
-        chunk_log2=10, nranges=2, blk=BLK, buf_elems=1 << 13,
-        fanout=fanout)
-    got_k = np.concatenate([np.asarray(r) for r in outs[0]])
-    got_v = np.concatenate([np.asarray(r) for r in outs[1]])
-    allk, allv = np.concatenate(ks), np.concatenate(vs)
-    want = np.lexsort((allv, allk))
-    np.testing.assert_array_equal(got_k, allk[want])
-    np.testing.assert_array_equal(got_v, allv[want])
-
-
-def test_sort_with_ranks_chunked_streaming_consumer(rng):
-    """range_consumer receives each range as it completes and its results
-    replace the accumulated buffers (the 2^30 memory plan: holding all
-    ranges at once RESOURCE_EXHAUSTED's the chip — ops/bigsort.py)."""
-    S = 8
-    segs = [rng.integers(0, 1000, L, dtype=np.uint32) for _ in range(S)]
-    host = np.concatenate(segs)
-    seen = []
-
-    def consume(ri, outs):
-        assert ri == len(seen)
-        k, r = outs
-        seen.append((np.asarray(k), np.asarray(r)))
-        return int(np.asarray(k)[-1])
-
-    (results,) = sort_with_ranks_chunked(
-        [jnp.asarray(s) for s in segs], tile_log2=TILE_LOG,
-        chunk_log2=10, nranges=2, blk=BLK, buf_elems=1 << 13,
-        range_consumer=consume)[0:1]
-    assert len(seen) == 2 and len(results) == 2
-    got_k = np.concatenate([k for k, _ in seen])
-    got_r = np.concatenate([r for _, r in seen])
-    perm = np.argsort(host, kind="stable")
-    np.testing.assert_array_equal(got_k, host[perm])
-    np.testing.assert_array_equal(got_r, perm.astype(np.uint32))
-    assert results == [int(got_k[len(got_k) // 2 - 1]), int(got_k[-1])]
+    np.testing.assert_array_equal(np.asarray(got_k), hostk[perm])
+    np.testing.assert_array_equal(np.asarray(got_v), hostv[perm])

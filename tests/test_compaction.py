@@ -1,10 +1,9 @@
-"""Streaming compaction kernel + filter ops (kernels/compaction.py)."""
+"""Order-preserving compaction (ops/filter.compact) and the filter ops."""
 import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from lsdradixsort_tpu.kernels.compaction import compact_stream
-from lsdradixsort_tpu.ops.filter import compact, filter_keys, filter_kv
+from lsdradixsort.ops.filter import compact, filter_keys, filter_kv
 
 
 @pytest.mark.parametrize("nt", [1, 3])
@@ -12,38 +11,34 @@ from lsdradixsort_tpu.ops.filter import compact, filter_keys, filter_kv
 def test_compact_stream(rng, nt, p):
     n = nt * (1 << 15)
     x = rng.integers(0, 2**32, n, dtype=np.uint32)
-    mask = (rng.random(n) < p).astype(np.uint32)
-    out = np.asarray(compact_stream(jnp.asarray(mask), jnp.asarray(x)))
-    cnt = int(mask.sum())
-    np.testing.assert_array_equal(out[:cnt], x[mask.astype(bool)])
+    mask = rng.random(n) < p
+    cnt, out = compact(jnp.asarray(mask), jnp.asarray(x))
+    assert int(cnt) == int(mask.sum())
+    np.testing.assert_array_equal(np.asarray(out)[:int(cnt)], x[mask])
 
 
 def test_compact_stream_carry_chains(rng):
-    # counts that force odd carries across every tile boundary
+    # 1/7 selectivity: selected rows never line up with any block size
     n = 4 << 15
     x = np.arange(n, dtype=np.uint32)
-    mask = np.zeros(n, np.uint32)
-    mask[:: 7] = 1    # 1/7 selectivity -> never row-aligned
-    out = np.asarray(compact_stream(jnp.asarray(mask), jnp.asarray(x)))
-    cnt = int(mask.sum())
-    np.testing.assert_array_equal(out[:cnt], x[mask.astype(bool)])
+    mask = np.zeros(n, bool)
+    mask[::7] = True
+    cnt, out = compact(jnp.asarray(mask), jnp.asarray(x))
+    np.testing.assert_array_equal(np.asarray(out)[:int(cnt)], x[mask])
 
 
 def test_compact_stream_multi_three(rng):
-    from lsdradixsort_tpu.kernels.compaction import compact_stream_multi
     n = 2 << 15
     xs = [rng.integers(0, 2**32, n, dtype=np.uint32) for _ in range(3)]
-    mask = (rng.random(n) < 0.3).astype(np.uint32)
-    outs = compact_stream_multi(jnp.asarray(mask),
-                                [jnp.asarray(x) for x in xs])
-    cnt = int(mask.sum())
+    mask = rng.random(n) < 0.3
+    cnt, *outs = compact(jnp.asarray(mask), *[jnp.asarray(x) for x in xs])
+    c = int(cnt)
     for x, out in zip(xs, outs):
-        np.testing.assert_array_equal(np.asarray(out)[:cnt],
-                                      x[mask.astype(bool)])
+        np.testing.assert_array_equal(np.asarray(out)[:c], x[mask])
 
 
 def test_filter_ops_large(rng):
-    n = (1 << 16) + 12345    # non-multiple of the stream tile
+    n = (1 << 16) + 12345
     keys = rng.integers(0, 2**32, n, dtype=np.uint32)
     lo, hi = np.uint32(1 << 30), np.uint32(3 << 30)
     count, packed = filter_keys(jnp.asarray(keys), lo, hi)
@@ -59,7 +54,7 @@ def test_filter_ops_large(rng):
 
 
 def test_filter_small_path(rng):
-    n = 1000   # below the stream tile: sort-based path
+    n = 1000
     keys = rng.integers(0, 100, n, dtype=np.uint32)
     count, packed = filter_keys(jnp.asarray(keys), 10, 50)
     want = keys[(keys >= 10) & (keys < 50)]

@@ -3,7 +3,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from lsdradixsort_tpu.core import digits, datagen, roofline
+from lsdradixsort.core import digits, datagen, roofline
 
 
 @pytest.mark.parametrize("r", [1, 2, 4, 8, 16])
@@ -41,9 +41,55 @@ def test_skewed_keys():
 
 
 def test_roofline_model():
-    rl = roofline.Roofline("TPU v5 lite", 819.0)
-    assert rl.light_speed_s(819e9) == pytest.approx(1.0)
-    assert rl.fraction(819e9, 2.0) == pytest.approx(0.5)
+    rl = roofline.lookup("NVIDIA H200")
+    assert rl.light_speed_s(4800e9) == pytest.approx(1.0)
+    assert rl.fraction(4800e9, 2.0) == pytest.approx(0.5)
     # one 8-bit pass on keys-only: read for hist + read + write = 12 B/elem
     assert roofline.sort_pass_bytes(100, 4, 0) == 1200
     assert roofline.sort_bytes(100, 8, 4, 0) == 4 * 1200
+
+
+def test_roofline_h200_entry_resolves():
+    rl = roofline.lookup("NVIDIA H200")
+    assert rl.hbm_gbps == 4800.0
+    assert "data sheet" in rl.source
+
+
+@pytest.mark.parametrize("kind", ["cpu", "NVIDIA H100 80GB HBM3", ""])
+def test_roofline_unknown_kind_raises(kind):
+    with pytest.raises(KeyError):
+        roofline.lookup(kind)
+
+
+def test_roofline_detect_on_cpu_raises():
+    # the CPU has no published peak: a share against it is not measured
+    with pytest.raises(KeyError):
+        roofline.detect()
+
+
+def test_cache_defers_to_env(monkeypatch, tmp_path):
+    import jax
+    from lsdradixsort.core import cache
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "c"))
+    assert cache.enable_persistent_cache() == str(tmp_path / "c")
+    # JAX reads the variable itself: no other directory is set
+    assert jax.config.jax_compilation_cache_dir == before
+    assert not (tmp_path / "c").exists()
+
+
+def test_cache_fixed_dir_in_checkout(monkeypatch):
+    import os
+    import jax
+    from lsdradixsort.core import cache
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        d = cache.enable_persistent_cache()
+        assert jax.config.jax_compilation_cache_dir == d
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert d == os.path.join(root, ".jax_cache")
+    with open(os.path.join(root, ".gitignore")) as f:
+        assert ".jax_cache/" in f.read().split()

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lsdradixsort_tpu.parallel.mesh import make_mesh
-from lsdradixsort_tpu.parallel.dist_query import (dist_group_by_sum,
-                                                  dist_join, undistribute)
+from lsdradixsort.parallel.mesh import make_mesh
+from lsdradixsort.parallel.dist_query import (dist_group_by_sum,
+                                              dist_join, undistribute)
 
 
 @pytest.fixture(scope="module")
@@ -140,7 +140,7 @@ def test_group_by_and_join_small_meshes(d):
 
 
 def test_dist_filter_kv(mesh):
-    from lsdradixsort_tpu.parallel.dist_query import dist_filter_kv
+    from lsdradixsort.parallel.dist_query import dist_filter_kv
     rng = np.random.default_rng(9)
     n = 1 << 12
     keys = rng.integers(0, 1000, n, dtype=np.uint64).astype(np.uint32)
@@ -160,8 +160,8 @@ def test_config5_distributed_query_pipeline(mesh):
 
     Each stage runs distributed; ragged stage outputs are compacted and
     re-sharded between stages (host glue, as a driver would)."""
-    from lsdradixsort_tpu.parallel.dist_query import dist_filter_kv
-    from lsdradixsort_tpu.parallel.mesh import shard_1d
+    from lsdradixsort.parallel.dist_query import dist_filter_kv
+    from lsdradixsort.parallel.mesh import shard_1d
     rng = np.random.default_rng(33)
     d = mesh.shape["x"]
     nb, npr = 1 << 8, 1 << 13
@@ -215,9 +215,9 @@ def test_config5_distributed_query_pipeline(mesh):
 # ---------------------------------------------------------------------------
 
 def _check_join_multi(mesh, bk, bv, pk, pv, max_out=1 << 14):
-    from lsdradixsort_tpu.parallel.mesh import shard_1d
-    from lsdradixsort_tpu.parallel.dist_query import dist_join_multi
-    from lsdradixsort_tpu.golden.oracles import hash_join_multi as gold
+    from lsdradixsort.parallel.mesh import shard_1d
+    from lsdradixsort.parallel.dist_query import dist_join_multi
+    from lsdradixsort.golden.oracles import hash_join_multi as gold
     counts, jk, jpos, jpv, jbv, jbr = dist_join_multi(
         shard_1d(jnp.asarray(bk), mesh), shard_1d(jnp.asarray(bv), mesh),
         shard_1d(jnp.asarray(pk), mesh), shard_1d(jnp.asarray(pv), mesh),
@@ -248,7 +248,7 @@ def test_dist_join_multi_all_equal_keys_balanced(mesh):
     # maximum skew: ONE key on both sides. The fragment join must still
     # produce the full B x P cross-product AND balance it exactly:
     # every shard holds B/D build rows, so every shard emits P * B/D rows.
-    from lsdradixsort_tpu.parallel.mesh import DATA_AXIS
+    from lsdradixsort.parallel.mesh import DATA_AXIS
     d = mesh.shape[DATA_AXIS]
     nb, npr = 1 << 7, 1 << 7
     bk = np.full(nb, 42, dtype=np.uint32)
@@ -291,7 +291,7 @@ def test_dist_join_multi_unique_matches_dist_join(mesh):
     pk = rng.integers(0, 2 * nb, npr, dtype=np.uint64).astype(np.uint32)
     pv = rng.integers(0, 1 << 32, npr, dtype=np.uint64).astype(np.uint32)
     counts = _check_join_multi(mesh, bk, bv, pk, pv)
-    from lsdradixsort_tpu.parallel.mesh import shard_1d
+    from lsdradixsort.parallel.mesh import shard_1d
     c2, *rest = dist_join(
         shard_1d(jnp.asarray(bk), mesh), shard_1d(jnp.asarray(bv), mesh),
         shard_1d(jnp.asarray(pk), mesh), shard_1d(jnp.asarray(pv), mesh),
@@ -309,8 +309,8 @@ def _golden_topk_u32(keys, k, largest):
 
 @pytest.mark.parametrize("largest", [True, False])
 def test_dist_top_k(mesh, largest):
-    from lsdradixsort_tpu.parallel.dist_query import dist_top_k
-    from lsdradixsort_tpu.parallel.mesh import shard_1d
+    from lsdradixsort.parallel.dist_query import dist_top_k
+    from lsdradixsort.parallel.mesh import shard_1d
     rng = np.random.default_rng(5)
     n, k = 1 << 13, 37
     keys = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
@@ -322,8 +322,8 @@ def test_dist_top_k(mesh, largest):
 
 
 def test_dist_top_k_ties_across_shards(mesh):
-    from lsdradixsort_tpu.parallel.dist_query import dist_top_k
-    from lsdradixsort_tpu.parallel.mesh import shard_1d
+    from lsdradixsort.parallel.dist_query import dist_top_k
+    from lsdradixsort.parallel.mesh import shard_1d
     n, k = 1 << 13, 64
     keys = np.full(n, 9, np.uint32)  # every row ties: stability across shards
     sk = shard_1d(jnp.asarray(keys), mesh)
@@ -335,8 +335,8 @@ def test_dist_top_k_ties_across_shards(mesh):
 
 def test_dist_top_k_skewed_one_shard(mesh):
     # the global top-k lives entirely in one shard
-    from lsdradixsort_tpu.parallel.dist_query import dist_top_k
-    from lsdradixsort_tpu.parallel.mesh import shard_1d
+    from lsdradixsort.parallel.dist_query import dist_top_k
+    from lsdradixsort.parallel.mesh import shard_1d
     rng = np.random.default_rng(6)
     n, k = 1 << 13, 50
     keys = rng.integers(0, 1 << 16, n, dtype=np.uint64).astype(np.uint32)
@@ -350,7 +350,7 @@ def test_dist_top_k_skewed_one_shard(mesh):
 
 
 def test_dist_unique(mesh):
-    from lsdradixsort_tpu.parallel.dist_query import dist_unique
+    from lsdradixsort.parallel.dist_query import dist_unique
     rng = np.random.default_rng(12)
     n = 1 << 12
     keys = rng.integers(0, 97, n, dtype=np.uint64).astype(np.uint32)

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from lsdradixsort_tpu import golden
+from lsdradixsort import golden
 
 
 def _keys(rng, n):

@@ -1,16 +1,15 @@
-"""VMEM lane-bucketed hash table (kernels/hash_table.py) vs goldens:
-build/probe, the join and IN-list ops that ride it, and the overflow
-fallback path (chains deeper than the planned rows must still be exact
-via the lax.cond fallback)."""
+"""The join family on inputs built to defeat hashing (every key in one
+hash bucket of a multiplicative hash) and on small build sides: the
+sort-merge join, probe_lookup and the IN-list filters stay exact."""
 import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from lsdradixsort_tpu.kernels.hash_table import (LANES, MIX, build_table,
-                                                 lane_of, plan_rows,
-                                                 probe_table)
-from lsdradixsort_tpu.ops.filter import filter_in_set
-from lsdradixsort_tpu.ops.join import hash_join
+from lsdradixsort.ops.filter import filter_in_set
+from lsdradixsort.ops.join import hash_join
+
+MIX = 0x9E3779B1      # Fibonacci hashing multiplier
+ROWS = 32             # keys per colliding set
 
 
 @pytest.fixture
@@ -23,7 +22,8 @@ def _unique_keys(rng, n):
 
 
 def _colliding_keys(rows_plus: int):
-    """Keys that all hash to one lane: forces chain overflow."""
+    """Keys that share the top 7 bits of key * MIX: one bucket of a
+    128-bucket multiplicative hash."""
     ks, k = [], np.uint32(1)
     target = ((np.uint32(12345) * np.uint32(MIX)) >> np.uint32(25))
     while len(ks) < rows_plus:
@@ -31,46 +31,6 @@ def _colliding_keys(rows_plus: int):
             ks.append(k)
         k += np.uint32(1)
     return np.array(ks, dtype=np.uint32)
-
-
-@pytest.mark.parametrize("nb", [100, 1000, 3000])
-@pytest.mark.parametrize("semi", [False, True])
-def test_build_probe_golden(rng, nb, semi):
-    bk = _unique_keys(rng, nb)
-    bv = rng.integers(0, 1 << 32, nb, dtype=np.uint64).astype(np.uint32)
-    npr = 1 << 15
-    hit = rng.random(npr) < 0.6
-    pk = np.where(hit, rng.choice(bk, npr),
-                  _unique_keys(rng, npr + nb)[nb:nb + npr]).astype(np.uint32)
-    # probes drawn from outside bk where miss
-    in_set = np.isin(pk, bk)
-
-    rows = plan_rows(nb)
-    tk, tv, cnt, ok = build_table(jnp.asarray(bk), jnp.asarray(bv), rows)
-    assert bool(ok)
-    m, v = probe_table(tk, tv, cnt, jnp.asarray(pk), semi=semi)
-    np.testing.assert_array_equal(np.asarray(m), in_set.astype(np.uint32))
-    if not semi:
-        lut = dict(zip(bk.tolist(), bv.tolist()))
-        want_v = np.array([lut.get(k, 0) for k in pk.tolist()],
-                          dtype=np.uint32)
-        np.testing.assert_array_equal(np.asarray(v), want_v)
-
-
-def test_build_reports_overflow():
-    rows = 4
-    bad = _colliding_keys(rows + 2)
-    tk, tv, cnt, ok = build_table(jnp.asarray(bad), jnp.asarray(bad), rows)
-    assert not bool(ok)
-    assert int(np.asarray(cnt).max()) == rows  # clamped, not wrapped
-
-
-def test_lane_of_matches_kernel(rng):
-    ks = rng.integers(0, 1 << 32, 1 << 12, dtype=np.uint64).astype(np.uint32)
-    lanes = np.asarray(lane_of(jnp.asarray(ks)))
-    want = ((ks.astype(np.uint64) * MIX) & 0xFFFFFFFF) >> 25
-    np.testing.assert_array_equal(lanes, want.astype(np.int32))
-    assert lanes.min() >= 0 and lanes.max() < LANES
 
 
 def _join_golden(bk, bv, pk, pv):
@@ -89,8 +49,7 @@ def test_hash_join_vmem_engine(rng, nb):
                     npr).astype(np.uint32)
     pv = np.arange(npr, dtype=np.uint32)
     count, k, v, b = hash_join(jnp.asarray(bk), jnp.asarray(bv),
-                               jnp.asarray(pk), jnp.asarray(pv),
-                               engine="vmem")
+                               jnp.asarray(pk), jnp.asarray(pv))
     want = _join_golden(bk, bv, pk, pv)
     c = int(count)
     assert c == len(want)
@@ -100,9 +59,8 @@ def test_hash_join_vmem_engine(rng, nb):
 
 
 def test_hash_join_vmem_overflow_fallback(rng):
-    # every build key in one lane chain -> build overflows -> cond takes
-    # the sort-merge branch; result must still be exact
-    bk = _colliding_keys(plan_rows(32) + 3)[:plan_rows(32) + 3]
+    # every build key in one hash bucket
+    bk = _colliding_keys(ROWS + 3)
     nb = bk.size
     bv = rng.integers(0, 1 << 32, nb, dtype=np.uint64).astype(np.uint32)
     npr = 4096
@@ -110,8 +68,7 @@ def test_hash_join_vmem_overflow_fallback(rng):
                     npr).astype(np.uint32)
     pv = np.arange(npr, dtype=np.uint32)
     count, k, v, b = hash_join(jnp.asarray(bk), jnp.asarray(bv),
-                               jnp.asarray(pk), jnp.asarray(pv),
-                               engine="vmem")
+                               jnp.asarray(pk), jnp.asarray(pv))
     want = _join_golden(bk, bv, pk, pv)
     c = int(count)
     assert c == len(want)
@@ -137,7 +94,7 @@ def test_filter_in_set(rng, nset):
 
 
 def test_filter_in_set_overflow_fallback(rng):
-    sk = _colliding_keys(40)  # plan_rows(40) < 40 chains in one lane
+    sk = _colliding_keys(40)
     n = 8192
     keys = rng.choice(np.concatenate([sk, sk ^ np.uint32(0x400000)]),
                       n).astype(np.uint32)
@@ -148,7 +105,7 @@ def test_filter_in_set_overflow_fallback(rng):
 
 
 def test_filter_not_in_set(rng):
-    from lsdradixsort_tpu.ops.filter import filter_not_in_set
+    from lsdradixsort.ops.filter import filter_not_in_set
     sk = _unique_keys(rng, 300)
     n = 50_000
     keys = rng.choice(np.concatenate([sk, _unique_keys(rng, 300)]),
@@ -163,17 +120,15 @@ def test_filter_not_in_set(rng):
     np.testing.assert_array_equal(np.asarray(fv)[:c], vals[mask])
 
 
-@pytest.mark.parametrize("engine", ["xla", "merge", "vmem"])
-def test_probe_lookup(rng, engine):
-    from lsdradixsort_tpu.ops.join import probe_lookup
-    nb, npr = 1000, 1 << 14
+@pytest.mark.parametrize("nb", [1, 1000, 5000])
+def test_probe_lookup(rng, nb):
+    from lsdradixsort.ops.join import probe_lookup
+    npr = 1 << 14
     bk = _unique_keys(rng, nb)
     bv = rng.integers(0, 1 << 32, nb, dtype=np.uint64).astype(np.uint32)
     pk = rng.choice(np.concatenate([bk, _unique_keys(rng, nb)]),
                     npr).astype(np.uint32)
-    kw = dict(tile_log2=9) if engine == "merge" else {}
-    m, v = probe_lookup(jnp.asarray(bk), jnp.asarray(bv), jnp.asarray(pk),
-                        engine=engine, **kw)
+    m, v = probe_lookup(jnp.asarray(bk), jnp.asarray(bv), jnp.asarray(pk))
     lut = dict(zip(bk.tolist(), bv.tolist()))
     want_m = np.array([k in lut for k in pk.tolist()], dtype=np.uint32)
     want_v = np.array([lut.get(k, 0) for k in pk.tolist()], dtype=np.uint32)
@@ -182,15 +137,13 @@ def test_probe_lookup(rng, engine):
 
 
 def test_probe_lookup_vmem_overflow_fallback(rng):
-    from lsdradixsort_tpu.ops.join import probe_lookup
-    from lsdradixsort_tpu.kernels.hash_table import plan_rows
-    bk = _colliding_keys(plan_rows(32) + 3)
+    from lsdradixsort.ops.join import probe_lookup
+    bk = _colliding_keys(ROWS + 3)
     nb = bk.size
     bv = rng.integers(0, 1 << 32, nb, dtype=np.uint64).astype(np.uint32)
     pk = rng.choice(np.concatenate([bk, bk + np.uint32(1)]),
                     4096).astype(np.uint32)
-    m, v = probe_lookup(jnp.asarray(bk), jnp.asarray(bv), jnp.asarray(pk),
-                        engine="vmem")
+    m, v = probe_lookup(jnp.asarray(bk), jnp.asarray(bv), jnp.asarray(pk))
     lut = dict(zip(bk.tolist(), bv.tolist()))
     want_m = np.array([k in lut for k in pk.tolist()], dtype=np.uint32)
     want_v = np.array([lut.get(k, 0) for k in pk.tolist()], dtype=np.uint32)
@@ -199,7 +152,7 @@ def test_probe_lookup_vmem_overflow_fallback(rng):
 
 
 def test_probe_lookup64_and_join64(rng):
-    from lsdradixsort_tpu.ops.join import hash_join64, probe_lookup64
+    from lsdradixsort.ops.join import hash_join64, probe_lookup64
     nb, npr = 700, 1 << 13
     # unique 64-bit build keys with COLLIDING hi planes (hi has 16 values)
     bhi = rng.integers(0, 16, nb, dtype=np.uint64).astype(np.uint32)

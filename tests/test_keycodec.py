@@ -6,8 +6,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from lsdradixsort_tpu.core.keycodec import decode, encode
-from lsdradixsort_tpu.ops.sort import argsort, sort, sort_kv, sort_with_ranks
+from lsdradixsort.core.keycodec import decode, encode
+from lsdradixsort.ops.sort import argsort, sort, sort_kv, sort_with_ranks
 
 
 @pytest.fixture
@@ -76,12 +76,12 @@ def test_f32_total_order_specials():
 
 @pytest.mark.parametrize("dtype", [np.int32, np.float32])
 @pytest.mark.parametrize("desc", [False, True])
-@pytest.mark.parametrize("strategy", ["merge", "xla"])
+@pytest.mark.parametrize("strategy", ["composed", "xla"])
 def test_sort_dtypes(rng, dtype, desc, strategy):
     n = 1 << 12
     k = _i32(rng, n) if dtype == np.int32 else _f32(rng, n)
     got = np.asarray(sort(jnp.asarray(k), strategy=strategy,
-                          descending=desc))
+                          block_size=1 << 10, descending=desc))
     want = np.sort(k)
     if desc:
         want = want[::-1]
@@ -105,8 +105,8 @@ def test_sort_kv_merge_engine_i32(rng, desc):
     n = 1 << 12
     k = (rng.integers(-50, 50, n)).astype(np.int32)
     v = np.arange(n, dtype=np.uint32)
-    sk, sv = sort_kv(jnp.asarray(k), jnp.asarray(v), strategy="merge",
-                     tile_log2=9, descending=desc)
+    sk, sv = sort_kv(jnp.asarray(k), jnp.asarray(v), strategy="composed",
+                     block_size=1 << 10, descending=desc)
     want_perm = np.argsort(-k if desc else k, kind="stable")
     np.testing.assert_array_equal(np.asarray(sk), k[want_perm])
     np.testing.assert_array_equal(np.asarray(sv), want_perm.astype(np.uint32))
@@ -140,10 +140,9 @@ def _planes(k64_bits: np.ndarray):
 
 @pytest.mark.parametrize("dtype", ["uint64", "int64", "float64"])
 @pytest.mark.parametrize("desc", [False, True])
-@pytest.mark.parametrize("strategy", ["merge", "merge2", "xla"])
-def test_sort64_with_ranks(rng, dtype, desc, strategy):
-    from lsdradixsort_tpu.ops.sort import sort64_with_ranks
-    n = 1 << 12
+@pytest.mark.parametrize("n", [1 << 12, 1000, 4097])
+def test_sort64_with_ranks(rng, dtype, desc, n):
+    from lsdradixsort.ops.sort import sort64_with_ranks
     if dtype == "uint64":
         logical = rng.integers(0, 1 << 64, n, dtype=np.uint64)
         # low-entropy hi plane: exercises ties across the second pass
@@ -161,10 +160,8 @@ def test_sort64_with_ranks(rng, dtype, desc, strategy):
         logical = logical.astype(np.float64)
         bits = logical.view(np.uint64)
     hi, lo = _planes(bits)
-    kw = dict(tile_log2=9) if strategy.startswith("merge") else {}
     hi_s, lo_s, perm = sort64_with_ranks(
-        jnp.asarray(hi), jnp.asarray(lo), dtype=dtype, descending=desc,
-        strategy=strategy, **kw)
+        jnp.asarray(hi), jnp.asarray(lo), dtype=dtype, descending=desc)
     hi_s, lo_s, perm = map(np.asarray, (hi_s, lo_s, perm))
     # golden: host mirror of the 64-bit codec, stable-argsorted — gives
     # the exact expected permutation for every dtype (incl. the total
@@ -191,17 +188,15 @@ def _lex_golden(cols, descs):
     return np.lexsort(tuple(reversed(codes)))  # np.lexsort: primary LAST
 
 
-@pytest.mark.parametrize("strategy", ["merge", "xla"])
+@pytest.mark.parametrize("n", [1 << 12, 1001])
 @pytest.mark.parametrize("desc", [False, (False, True), (True, False)])
-def test_sort_lex_two_columns(rng, strategy, desc):
-    from lsdradixsort_tpu.ops.sort import sort_lex
-    n = 1 << 12
+def test_sort_lex_two_columns(rng, n, desc):
+    from lsdradixsort.ops.sort import sort_lex
     c0 = rng.integers(0, 50, n, dtype=np.int64).astype(np.int32) - 25
     c1 = (rng.standard_normal(n) * 100).astype(np.float32)
     descs = (desc, desc) if isinstance(desc, bool) else desc
-    kw = dict(tile_log2=9) if strategy == "merge" else {}
     (s0, s1), perm = sort_lex([jnp.asarray(c0), jnp.asarray(c1)],
-                              descending=desc, strategy=strategy, **kw)
+                              descending=desc)
     order = _lex_golden([c0, c1], descs)
     np.testing.assert_array_equal(np.asarray(perm), order.astype(np.uint32))
     np.testing.assert_array_equal(np.asarray(s0), c0[order])
@@ -210,7 +205,7 @@ def test_sort_lex_two_columns(rng, strategy, desc):
 
 
 def test_sort_lex_three_columns_stability(rng):
-    from lsdradixsort_tpu.ops.sort import sort_lex
+    from lsdradixsort.ops.sort import sort_lex
     n = 1 << 12
     cols = [rng.integers(0, 4, n, dtype=np.uint64).astype(np.uint32)
             for _ in range(3)]  # tiny domains: massive tie groups
@@ -224,7 +219,7 @@ def test_sort_lex_three_columns_stability(rng):
 def test_sort_lex_as_segmented_sort(rng):
     # segmented sort = sort_lex([segment_id, key]): keys sorted within
     # each segment run, segments in id order, ties by input position
-    from lsdradixsort_tpu.ops.sort import sort_lex
+    from lsdradixsort.ops.sort import sort_lex
     n = 1 << 12
     seg = rng.integers(0, 16, n, dtype=np.uint64).astype(np.uint32)
     key = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)

@@ -1,26 +1,15 @@
-"""Randomized differential fuzz of the flagship merge engine: small
-configurations (n, tile size, payload count, key distribution) against
-numpy.
-
-Shape diversity is deliberately bounded (n snapped to a small set, two
-tile sizes) so trials REUSE compiled programs: on this backend each
-distinct merge-cascade shape is a large LLVM compile, and accumulating
-dozens in one process reproduces the JIT-code segfault the conftest
-mitigates between modules (see conftest header). clear_caches between
-shape groups bounds it within this test too.
+"""Randomized differential fuzz of the sort family: small configurations
+(n, key distribution, payload count) against numpy.
 
 The targeted tests (test_merge.py) pin the known-hard cases; this sweep
-guards the space BETWEEN them — ragged tails, tiny tiles, pathological
-distributions, multi-stream tie handling."""
-import jax
+guards the space between them — ragged tails, pathological
+distributions, multi-payload tie handling."""
 import numpy as np
 import jax.numpy as jnp
 
-from lsdradixsort_tpu.ops.sort import (merge_sort_keys,
-                                       merge_sort_with_ranks,
-                                       merge_sort_multi)
+from lsdradixsort.ops.sort import sort, sort_kv, sort_with_ranks
 
-NS = (1777, 6 << 10, 20_480, 33_000)   # ragged + aligned, 1-3 merge passes
+NS = (1777, 6 << 10, 20_480, 33_000)   # ragged + aligned
 
 
 def _dist(rng, n, kind):
@@ -36,7 +25,7 @@ def _dist(rng, n, kind):
             ::-1].astype(np.uint32)
     if kind == 4:
         return np.full(n, rng.integers(0, 1 << 32), np.uint32)
-    # mostly-one-value with a sprinkle (splitter-table stress)
+    # mostly-one-value with a sprinkle
     x = np.full(n, 7, np.uint32)
     m = rng.random(n) < 0.02
     x[m] = rng.integers(0, 1 << 32, int(m.sum()), dtype=np.uint64).astype(
@@ -46,19 +35,18 @@ def _dist(rng, n, kind):
 
 def test_merge_engine_fuzz():
     rng = np.random.default_rng(2026)
-    for gi, (n, tile_log2) in enumerate([(NS[0], 8), (NS[1], 8),
-                                         (NS[2], 9), (NS[3], 9)]):
+    for n in NS:
         for kind in range(6):
             keys = _dist(rng, n, kind)
-            cfg = f"n={n} tile=2^{tile_log2} kind={kind}"
+            cfg = f"n={n} kind={kind}"
             jk = jnp.asarray(keys)
             perm = np.argsort(keys, kind="stable")
             if kind % 3 == 0:
-                got = np.asarray(merge_sort_keys(jk, tile_log2=tile_log2))
+                got = np.asarray(sort(jk))
                 np.testing.assert_array_equal(got, np.sort(keys),
                                               err_msg=cfg)
             elif kind % 3 == 1:
-                sk, ranks = merge_sort_with_ranks(jk, tile_log2=tile_log2)
+                sk, ranks = sort_with_ranks(jk)
                 np.testing.assert_array_equal(np.asarray(sk), keys[perm],
                                               err_msg=cfg)
                 np.testing.assert_array_equal(np.asarray(ranks),
@@ -68,12 +56,9 @@ def test_merge_engine_fuzz():
                 vals = [np.arange(n, dtype=np.uint32),
                         rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(
                             np.uint32)]
-                sk, outs = merge_sort_multi(
-                    jk, [jnp.asarray(v) for v in vals],
-                    tile_log2=tile_log2)
+                sk, outs = sort_kv(jk, tuple(jnp.asarray(v) for v in vals))
                 np.testing.assert_array_equal(np.asarray(sk), keys[perm],
                                               err_msg=cfg)
                 for v, o in zip(vals, outs):
                     np.testing.assert_array_equal(np.asarray(o), v[perm],
                                                   err_msg=cfg)
-        jax.clear_caches()   # release this shape group's JIT code

@@ -7,7 +7,7 @@ seeded inputs.
 import numpy as np
 import pytest
 
-from lsdradixsort_tpu import native
+from lsdradixsort import native
 
 
 @pytest.fixture(scope="module")

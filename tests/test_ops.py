@@ -5,8 +5,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from lsdradixsort_tpu import golden, ops
-from lsdradixsort_tpu.utils import check_arrays, check_sorted
+from lsdradixsort import golden, ops
+from lsdradixsort.utils import check_arrays, check_sorted
 
 
 def _keys(rng, n, hi=1 << 32):
@@ -154,7 +154,7 @@ def test_hash_join_all_match_duplicated_probes(rng):
 
 
 def test_sort_with_ranks_matches_stable_argsort():
-    from lsdradixsort_tpu.ops.sort import sort_with_ranks
+    from lsdradixsort.ops.sort import sort_with_ranks
     rng = np.random.default_rng(11)
     keys = rng.integers(0, 50, 4096, dtype=np.uint64).astype(np.uint32)
     sk, perm = sort_with_ranks(jnp.asarray(keys))
@@ -163,18 +163,16 @@ def test_sort_with_ranks_matches_stable_argsort():
     np.testing.assert_array_equal(np.asarray(sk), keys[want])
 
 
-@pytest.mark.parametrize("engine", ["xla", "merge"])
-def test_filtered_group_by_sum(engine):
-    from lsdradixsort_tpu.ops.aggregate import filtered_group_by_sum
+@pytest.mark.parametrize("n", [1 << 12, 4097])
+def test_filtered_group_by_sum(n):
+    from lsdradixsort.ops.aggregate import filtered_group_by_sum
     rng = np.random.default_rng(21)
-    n = 1 << 12
     keys = rng.integers(0, 1000, n, dtype=np.uint64).astype(np.uint32)
     gk = rng.integers(0, 37, n, dtype=np.uint64).astype(np.uint32)
     vals = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
     lo, hi = 200, 700
     cnt, uk, sums = filtered_group_by_sum(
-        jnp.asarray(keys), jnp.asarray(gk), jnp.asarray(vals), lo, hi,
-        engine=engine, tile_log2=10)
+        jnp.asarray(keys), jnp.asarray(gk), jnp.asarray(vals), lo, hi)
     mask = (keys >= lo) & (keys < hi)
     wk, ws = golden.group_by_sum(gk[mask], vals[mask])
     assert int(cnt) == wk.size
@@ -184,7 +182,7 @@ def test_filtered_group_by_sum(engine):
 
 def test_filtered_group_by_sum_sentinel_group():
     # a real group key equal to the sentinel must still aggregate correctly
-    from lsdradixsort_tpu.ops.aggregate import filtered_group_by_sum
+    from lsdradixsort.ops.aggregate import filtered_group_by_sum
     keys = np.array([5, 5, 50, 50], np.uint32)
     gk = np.array([0xFFFFFFFF, 1, 0xFFFFFFFF, 1], np.uint32)
     vals = np.array([10, 20, 30, 40], np.uint32)
@@ -198,11 +196,9 @@ def test_filtered_group_by_sum_sentinel_group():
 
 
 def test_group_by_sum_merge_engine(rng):
-    # engine="merge" routes the grouping sort through the framework sort
     gk = _keys(rng, 40_000, hi=500)
     v = _keys(rng, 40_000)
-    count, uk, sums = ops.group_by_sum(jnp.asarray(gk), jnp.asarray(v),
-                                       engine="merge", tile_log2=11)
+    count, uk, sums = ops.group_by_sum(jnp.asarray(gk), jnp.asarray(v))
     wk, ws = golden.group_by_sum(gk, v)
     c = int(count)
     assert c == wk.size
@@ -216,8 +212,7 @@ def test_hash_join_merge_engine(rng):
     pk = _keys(rng, 20_000, hi=2000)
     pv = np.arange(20_000, dtype=np.uint32)
     count, jk, jpv, jbv = ops.hash_join(
-        jnp.asarray(bk), jnp.asarray(bv), jnp.asarray(pk), jnp.asarray(pv),
-        engine="merge", tile_log2=11)
+        jnp.asarray(bk), jnp.asarray(bv), jnp.asarray(pk), jnp.asarray(pv))
     wk, wpv, wbv = golden.hash_join(bk, bv, pk, pv)
     c = int(count)
     assert c == wk.size
@@ -227,25 +222,21 @@ def test_hash_join_merge_engine(rng):
 
 
 def test_sort_kv_merge_strategy(rng):
-    # framework engine: iota tiebreak + arbitrary payload riding
     n = 10_000
     keys = rng.integers(0, 64, n, dtype=np.uint32)   # heavy duplicates
     vals = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
-    gk, gv = ops.sort_kv(jnp.asarray(keys), jnp.asarray(vals),
-                         strategy="merge", tile_log2=11)
+    gk, gv = ops.sort_kv(jnp.asarray(keys), jnp.asarray(vals))
     wk, wv = golden.lsd_radix_sort_kv(keys, vals)
     check_arrays(gk, wk, "kv keys merge")
     check_arrays(gv, wv, "kv vals merge (stability)")
 
 
 def test_sort_kv_merge_f32_payload(rng):
-    # 32-bit non-u32 payloads ride the merge engine BITCAST (lossless);
-    # astype would corrupt float bits (ADVICE r4)
+    # a float payload moves bit-exactly (no value conversion)
     n = 10_000
     keys = rng.integers(0, 64, n, dtype=np.uint32)
     vals = rng.standard_normal(n).astype(np.float32)
-    gk, gv = ops.sort_kv(jnp.asarray(keys), jnp.asarray(vals),
-                         strategy="merge", tile_log2=11)
+    gk, gv = ops.sort_kv(jnp.asarray(keys), jnp.asarray(vals))
     perm = np.argsort(keys, kind="stable")
     check_arrays(gk, keys[perm], "kv keys merge f32")
     assert np.asarray(gv).dtype == np.float32
@@ -254,31 +245,31 @@ def test_sort_kv_merge_f32_payload(rng):
 
 
 def test_sort_kv_merge_u16_payload_falls_back(rng):
-    # non-32-bit payloads take the XLA path silently (exact for any
-    # dtype; 64-bit leaves can't occur here — jax x64 is off, so they
-    # downcast at asarray time before reaching sort_kv)
+    # a 16-bit payload keeps its dtype and values
     n = 8_192
     keys = rng.integers(0, 64, n, dtype=np.uint32)
     vals = rng.integers(0, 2**16, n, dtype=np.uint16)
-    gk, gv = ops.sort_kv(jnp.asarray(keys), jnp.asarray(vals),
-                         strategy="merge", tile_log2=11)
+    gk, gv = ops.sort_kv(jnp.asarray(keys), jnp.asarray(vals))
     perm = np.argsort(keys, kind="stable")
     check_arrays(gk, keys[perm], "kv keys u16 fallback")
     assert np.asarray(gv).dtype == np.uint16
     np.testing.assert_array_equal(np.asarray(gv), vals[perm])
 
 
-@pytest.mark.parametrize("engine", ["xla", "merge"])
-def test_hash_join_multi(rng, engine):
-    # many-to-many: ~6 build rows per key, every probe key may repeat
+@pytest.mark.parametrize("masked", [False, True])
+def test_hash_join_multi(rng, masked):
+    # many-to-many: ~6 build rows per key, every probe key may repeat;
+    # probe_valid drops the masked probe rows entirely
     bk = _keys(rng, 3000, hi=500)
     bv = _keys(rng, 3000)
     pk = _keys(rng, 10_000, hi=800)
     pv = np.arange(10_000, dtype=np.uint32)
-    wk, wpv, wbv = golden.hash_join_multi(bk, bv, pk, pv)
+    valid = (rng.random(10_000) < 0.7) if masked else np.ones(10_000, bool)
+    wk, wpv, wbv = golden.hash_join_multi(bk, bv, pk[valid], pv[valid])
     count, jk, jpv, jbv = ops.hash_join_multi(
         jnp.asarray(bk), jnp.asarray(bv), jnp.asarray(pk), jnp.asarray(pv),
-        max_out=1 << 16, engine=engine)
+        max_out=1 << 16,
+        probe_valid=jnp.asarray(valid) if masked else None)
     c = int(count)
     assert c == wk.size
     check_arrays(np.asarray(jk)[:c], wk, "m2m join keys")

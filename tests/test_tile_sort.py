@@ -1,15 +1,23 @@
-"""Tests for the bitonic tile sort and the DMA run-shuffle kernels.
+"""Block-local stable kv sort (ops/sort.sort_blocks_kv), the reference's
+block-local sort (TestLSDBinaryRadixSort, cu:423-477), vs numpy."""
+import collections
 
-Run on the forced-CPU backend in interpret mode (conftest.py); the same
-kernels are verified on real TPU by the bench suites (--verify).
-"""
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lsdradixsort_tpu.kernels.tile_sort import sort_tiles, sort_tiles_kv
-from lsdradixsort_tpu.kernels.shuffle import shuffle_row_runs
+from lsdradixsort.ops.sort import sort_blocks_kv
+
+
+def _check_blocks(keys, vals, ok, ov, block):
+    for t in range(keys.size // block):
+        seg = keys[t * block:(t + 1) * block]
+        perm = np.argsort(seg, kind="stable")
+        np.testing.assert_array_equal(
+            np.asarray(ok)[t * block:(t + 1) * block], seg[perm])
+        np.testing.assert_array_equal(
+            np.asarray(ov)[t * block:(t + 1) * block],
+            vals[t * block:(t + 1) * block][perm])
 
 
 @pytest.mark.parametrize("tile_rows,ntiles", [(8, 4), (32, 2), (128, 1)])
@@ -18,107 +26,60 @@ def test_sort_tiles_kv_stable(tile_rows, ntiles):
     rng = np.random.default_rng(42)
     keys = rng.integers(0, 100, n, dtype=np.uint32)  # heavy duplicates
     vals = np.arange(n, dtype=np.uint32)
-    ok, ov = sort_tiles_kv(jnp.asarray(keys), jnp.asarray(vals),
-                           tile_rows=tile_rows)
-    tile = tile_rows * 128
-    for t in range(ntiles):
-        seg = keys[t * tile:(t + 1) * tile]
-        perm = np.argsort(seg, kind="stable")
-        np.testing.assert_array_equal(np.asarray(ok)[t * tile:(t + 1) * tile],
-                                      seg[perm])
-        np.testing.assert_array_equal(np.asarray(ov)[t * tile:(t + 1) * tile],
-                                      perm.astype(np.uint32) + t * tile)
+    ok, ov = sort_blocks_kv(jnp.asarray(keys), jnp.asarray(vals),
+                            block_size=tile_rows * 128)
+    _check_blocks(keys, vals, ok, ov, tile_rows * 128)
 
 
 @pytest.mark.parametrize("tile_rows,ntiles", [(32, 2), (128, 1)])
 def test_sort_tiles_kv_stable_reshape_ce(tile_rows, ntiles):
-    # the reshape-halves CE path covers row stages at dist >= 1024
-    n = tile_rows * 128 * ntiles
+    # random payload bits and a block size that is not a power of two
+    n = tile_rows * 120 * ntiles
     rng = np.random.default_rng(7)
     keys = rng.integers(0, 100, n, dtype=np.uint32)
-    vals = np.arange(n, dtype=np.uint32)
-    ok, ov = sort_tiles_kv(jnp.asarray(keys), jnp.asarray(vals),
-                           tile_rows=tile_rows, ce="reshape")
-    tile = tile_rows * 128
-    for t in range(ntiles):
-        seg = keys[t * tile:(t + 1) * tile]
-        perm = np.argsort(seg, kind="stable")
-        np.testing.assert_array_equal(np.asarray(ok)[t * tile:(t + 1) * tile],
-                                      seg[perm])
-        np.testing.assert_array_equal(np.asarray(ov)[t * tile:(t + 1) * tile],
-                                      perm.astype(np.uint32) + t * tile)
-    ok = sort_tiles(jnp.asarray(keys), tile_rows=tile_rows, ce="reshape")
-    for t in range(ntiles):
-        np.testing.assert_array_equal(
-            np.asarray(ok)[t * tile:(t + 1) * tile],
-            np.sort(keys[t * tile:(t + 1) * tile]))
+    vals = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    ok, ov = sort_blocks_kv(jnp.asarray(keys), jnp.asarray(vals),
+                            block_size=tile_rows * 120)
+    _check_blocks(keys, vals, ok, ov, tile_rows * 120)
 
 
 def test_sort_tiles_multi_tied_compare_pair():
-    # regression: with >= 2 payloads and exact (key, val0) ties, the CE
-    # halves must agree or riding values get duplicated/dropped
-    from lsdradixsort_tpu.kernels.tile_sort import sort_tiles_multi
-    import collections
+    # heavy key ties with a distinct payload: nothing duplicated or lost
     n = 32 * 128
     rng = np.random.default_rng(5)
-    k = rng.integers(0, 4, n, dtype=np.uint32)      # heavy key ties
-    v0 = rng.integers(0, 2, n, dtype=np.uint32)     # heavy val0 ties
-    v1 = np.arange(n, dtype=np.uint32)              # distinct riding stream
-    sk, (s0, s1) = sort_tiles_multi(jnp.asarray(k),
-                                    [jnp.asarray(v0), jnp.asarray(v1)],
-                                    tile_rows=32)
-    sk, s0, s1 = map(np.asarray, (sk, s0, s1))
-    pairs = np.stack([sk.astype(np.uint64) << 32 | s0], 1).reshape(-1)
-    assert (pairs[1:] >= pairs[:-1]).all()          # sorted by (key, val0)
-    got = collections.Counter(zip(sk.tolist(), s0.tolist(), s1.tolist()))
-    want = collections.Counter(zip(k.tolist(), v0.tolist(), v1.tolist()))
-    assert got == want                              # no riding corruption
+    k = rng.integers(0, 4, n, dtype=np.uint32)
+    v = np.arange(n, dtype=np.uint32)
+    sk, sv = map(np.asarray, sort_blocks_kv(jnp.asarray(k), jnp.asarray(v),
+                                            block_size=n))
+    assert (sk[1:] >= sk[:-1]).all()
+    got = collections.Counter(zip(sk.tolist(), sv.tolist()))
+    want = collections.Counter(zip(k.tolist(), v.tolist()))
+    assert got == want
 
 
 def test_sort_tiles_keys_full_range():
     n = 16 * 128
     rng = np.random.default_rng(0)
     keys = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
-    ok = sort_tiles(jnp.asarray(keys), tile_rows=16)
+    vals = np.arange(n, dtype=np.uint32)
+    ok, ov = sort_blocks_kv(jnp.asarray(keys), jnp.asarray(vals),
+                            block_size=n)
     np.testing.assert_array_equal(np.asarray(ok), np.sort(keys))
 
 
 def test_sort_tiles_adversarial():
     n = 8 * 128
+    vals = np.arange(n, dtype=np.uint32)
     for arr in (np.zeros(n, np.uint32),                    # all equal
                 np.arange(n, dtype=np.uint32),             # pre-sorted
                 np.arange(n, dtype=np.uint32)[::-1].copy(),  # reversed
                 np.full(n, 0xFFFFFFFF, np.uint32)):        # max values
-        ok = sort_tiles(jnp.asarray(arr), tile_rows=8)
-        np.testing.assert_array_equal(np.asarray(ok), np.sort(arr))
+        ok, ov = sort_blocks_kv(jnp.asarray(arr), jnp.asarray(vals),
+                                block_size=n)
+        _check_blocks(arr, vals, ok, ov, n)
 
 
-def test_shuffle_row_runs_fixed():
-    rows = 64
-    x = np.arange(rows * 128, dtype=np.uint32).reshape(rows, 128)
-    # reverse 8-row chunks
-    nch = rows // 8
-    src = np.arange(nch, dtype=np.int32) * 8
-    dst = (nch - 1 - np.arange(nch, dtype=np.int32)) * 8
-    out = shuffle_row_runs(jnp.asarray(x), jnp.asarray(src), jnp.asarray(dst),
-                           jnp.full(nch, 8, jnp.int32), out_rows=rows,
-                           runs_per_step=8, fixed_rows=8)
-    want = np.concatenate([x[i * 8:(i + 1) * 8] for i in range(nch - 1, -1, -1)])
-    np.testing.assert_array_equal(np.asarray(out), want)
-
-
-def test_shuffle_row_runs_variable():
-    rows = 96
-    x = np.arange(rows * 128, dtype=np.uint32).reshape(rows, 128)
-    lens = np.array([5, 1, 26, 64], dtype=np.int32)
-    src = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int32)
-    order = np.array([2, 0, 3, 1])  # permute the 4 runs
-    dst = np.empty(4, np.int32)
-    acc = 0
-    for r in order:
-        dst[r] = acc
-        acc += lens[r]
-    out = shuffle_row_runs(jnp.asarray(x), jnp.asarray(src), jnp.asarray(dst),
-                           jnp.asarray(lens), out_rows=rows, runs_per_step=8)
-    want = np.concatenate([x[src[r]:src[r] + lens[r]] for r in order])
-    np.testing.assert_array_equal(np.asarray(out), want)
+def test_sort_blocks_kv_rejects_ragged():
+    with pytest.raises(ValueError):
+        sort_blocks_kv(jnp.zeros(1000, jnp.uint32),
+                       jnp.zeros(1000, jnp.uint32), block_size=256)
